@@ -16,9 +16,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pointcloud_render_tpu.io import write_png
-from pointcloud_render_tpu.raster import alpha
-from pointcloud_render_tpu.scene.camera import Camera
+from pointcloud_render.io import write_png
+from pointcloud_render.raster import alpha
+from pointcloud_render.scene.camera import Camera
 
 W, H = 256, 144
 

@@ -1,8 +1,8 @@
-// Native IO runtime for pointcloud_render_tpu.
+// Native IO runtime for pointcloud_render.
 //
 // The reference's only native component is the external Mitsuba renderer
-// (traj_ball_renderer.py:342-363), which this framework replaces with TPU
-// kernels; the native surface that remains on the host is IO.  At the
+// (traj_ball_renderer.py:342-363), which this framework replaces with its
+// own device kernels; the native surface that remains on the host is IO.  At the
 // target frame rates the Python loaders/encoders become the bottleneck, so
 // the hot paths live here:
 //   * pcr_read_ply / pcr_ply_vertex_count — binary/ascii PLY parsing with

@@ -1,0 +1,15 @@
+"""Entry point mirroring the reference script example_renderer.py (preset: example).
+
+Same input/output folder conventions and frame schedule as the reference;
+all knobs overridable via the unified CLI flags (cli.main).
+"""
+
+from pointcloud_render.cli import main as _main
+
+
+def main(argv=None):
+    _main.main(argv, preset_name="example")
+
+
+if __name__ == "__main__":
+    main()

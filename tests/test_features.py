@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pointcloud_render_tpu.parallel.streaming import StreamingRasterizer
-from pointcloud_render_tpu.raster import alpha, xla_tiled
-from pointcloud_render_tpu.raster.primitives import discs_from_points
-from pointcloud_render_tpu.raster.render import RasterConfig
-from pointcloud_render_tpu.run.trajectory import TrajectoryScanRenderer
-from pointcloud_render_tpu.scene import dynamics
-from pointcloud_render_tpu.configs import PRESETS
-from pointcloud_render_tpu.scene.camera import Camera
+from pointcloud_render.parallel.streaming import StreamingRasterizer
+from pointcloud_render.raster import alpha, xla_tiled
+from pointcloud_render.raster.primitives import discs_from_points
+from pointcloud_render.raster.render import RasterConfig, rasterize
+from pointcloud_render.run.trajectory import TrajectoryScanRenderer
+from pointcloud_render.scene import dynamics
+from pointcloud_render.configs import PRESETS
+from pointcloud_render.scene.camera import Camera
 
 W, H = 256, 64
 
@@ -30,7 +30,7 @@ class TestStreaming:
         n = 1000
         pos = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
         sr = StreamingRasterizer(cam, chunk_points=256, radius_world=0.03,
-                                 backend="tiled")
+                                 config=RasterConfig(backend="tiled"))
         depth_s, idx_s = sr.rasterize(
             pos[i:i + 256] for i in range(0, n, 256))
 
@@ -48,7 +48,7 @@ class TestStreaming:
         rng = np.random.default_rng(1)
         pos = rng.uniform(-0.5, 0.5, (300, 3)).astype(np.float32)
         sr = StreamingRasterizer(cam, chunk_points=128, radius_world=0.03,
-                                 backend="tiled")
+                                 config=RasterConfig(backend="tiled"))
         depth, idx = sr.rasterize([pos[:128], pos[128:256], pos[256:]])
         idx = np.asarray(idx)
         assert idx.max() < 300  # padding sentinels never win
@@ -56,63 +56,53 @@ class TestStreaming:
 
     def test_max_big_knob_clears_overflow(self):
         """The big-list overflow RuntimeError tells the user to raise
-        max_big — so the knob must exist on StreamingRasterizer and
-        actually reach the kernel (review r3: it didn't)."""
-        import pytest
-
+        max_big — so the knob must reach the csr backend through the
+        streamer's RasterConfig."""
         cam = make_camera()
         rng = np.random.default_rng(6)
         n = 1400  # > the 1024 default big list, all wide discs
         pos = rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32)
-        sr = StreamingRasterizer(cam, chunk_points=n, radius_world=0.5,
-                                 backend="pallas")
+        sr = StreamingRasterizer(cam, chunk_points=n, radius_world=0.5)
         with pytest.raises(RuntimeError, match="max_big"):
             sr.rasterize([pos])
         sr2 = StreamingRasterizer(cam, chunk_points=n, radius_world=0.5,
-                                  backend="pallas", max_big=2048)
+                                  config=RasterConfig(max_big=2048))
         d, i = sr2.rasterize([pos])
         assert (np.asarray(i) >= 0).any()
 
-    def test_pallas_backend_capacity_assertion(self):
-        """The pallas streaming path (v4 kernel) must match tiled
-        winner-exactly AND
-        raise loudly when a chunk's true entry count exceeds the
-        configured capacity (the silent-truncation guard)."""
-        import pytest
-
+    def test_csr_backend_matches_tiled_and_tiled_overflow_is_loud(self):
+        """The default (csr) streaming path must match tiled winner-
+        exactly, and the tiled branch must report its real per-tile
+        overflow: a chunk past max_per_tile raises instead of silently
+        dropping primitives."""
         cam = make_camera()
         rng = np.random.default_rng(2)
         n = 512
         pos = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
-        sr = StreamingRasterizer(cam, chunk_points=256, radius_world=0.03,
-                                 backend="pallas", entry_capacity=65536)
+        sr = StreamingRasterizer(cam, chunk_points=256, radius_world=0.03)
         d_s, i_s = sr.rasterize([pos[:256], pos[256:]])
         prims = discs_from_points(pos, cam, jnp.full((n,), 0.03),
                                   np.array([0.3, 0.3, 0.3], np.float32))
         d_1, i_1 = xla_tiled.rasterize_tiled(prims, W, H)
         np.testing.assert_array_equal(np.asarray(i_s), np.asarray(i_1))
-        assert sr._max_entries > 0
 
-        tiny = StreamingRasterizer(cam, chunk_points=256,
-                                   radius_world=0.03, backend="pallas",
-                                   entry_capacity=64)
-        with pytest.raises(RuntimeError, match="entry_capacity"):
+        tiny = StreamingRasterizer(
+            cam, chunk_points=256, radius_world=0.1,
+            config=RasterConfig(backend="tiled", max_per_tile=32))
+        with pytest.raises(RuntimeError, match="max_per_tile"):
             tiny.rasterize([pos[:256]])
 
     def test_streamed_trail_scene_matches_monolithic(self):
         """A soup_fn streaming chunks of discs + velocity-trail capsules
-        (the traj_ball primitive soup) == the monolithic v4 render of the
-        concatenated soup, winner-exact, with capsule winners shaded by
-        the shared trail-boost shader (VERDICT r2 item 7)."""
-        from pointcloud_render_tpu.geometry.trails import velocity_trails
-        from pointcloud_render_tpu.raster.pallas_csr4 import (
-            rasterize_pallas_csr4,
-        )
-        from pointcloud_render_tpu.raster.primitives import (
+        (the traj_ball primitive soup) == the monolithic csr render of
+        the concatenated soup, winner-exact, with capsule winners shaded
+        by the shared trail-boost shader."""
+        from pointcloud_render.geometry.trails import velocity_trails
+        from pointcloud_render.raster.primitives import (
             ScreenPrimitives,
             capsules_from_polylines,
         )
-        from pointcloud_render_tpu.shading.shade import (
+        from pointcloud_render.shading.shade import (
             ShadingConfig,
             shade_winner_attrs,
         )
@@ -133,7 +123,7 @@ class TestStreaming:
             return ScreenPrimitives.concatenate([discs, caps])
 
         sr = StreamingRasterizer(cam, chunk_points=c, radius_world=0.02,
-                                 backend="pallas", soup_fn=soup_fn)
+                                 soup_fn=soup_fn)
         d_s, i_s, attrs = sr.rasterize(
             [(pos[:c], np.broadcast_to(sr.color, (c, 3)), vel[:c]),
              (pos[c:], np.broadcast_to(sr.color, (c, 3)), vel[c:])],
@@ -144,7 +134,7 @@ class TestStreaming:
                     jnp.asarray(vel[:c])),
             soup_fn(jnp.asarray(pos[c:]), jnp.broadcast_to(sr.color, (c, 3)),
                     jnp.asarray(vel[c:]))])
-        d_1, i_1 = rasterize_pallas_csr4(soup, W, H, interpret=True)
+        d_1, i_1 = rasterize(soup, W, H)
         np.testing.assert_array_equal(np.asarray(i_s), np.asarray(i_1))
         hit = np.asarray(i_1) >= 0
         assert hit.mean() > 0.02
@@ -166,15 +156,12 @@ class TestStreaming:
         shade_framebuffer — NOT the flat capsule trail boost (review
         r3: rflag used to lump every non-disc kind into the capsule
         branch)."""
-        from pointcloud_render_tpu.raster.pallas_csr4 import (
-            rasterize_pallas_csr4,
-        )
-        from pointcloud_render_tpu.raster.primitives import (
+        from pointcloud_render.raster.primitives import (
             KIND_TRIANGLE,
             ScreenPrimitives,
         )
-        from pointcloud_render_tpu.raster.render import ground_plane
-        from pointcloud_render_tpu.shading.shade import (
+        from pointcloud_render.raster.render import ground_plane
+        from pointcloud_render.shading.shade import (
             ShadingConfig,
             shade_framebuffer,
         )
@@ -194,15 +181,14 @@ class TestStreaming:
         # (~0.5x) and the old boost bug (1.5x) must be distinguishable.
         cfg = ShadingConfig(ambient=0.2, diffuse=0.3)
         sr = StreamingRasterizer(cam, chunk_points=n, radius_world=0.02,
-                                 backend="pallas", soup_fn=soup_fn,
-                                 shading=cfg)
+                                 soup_fn=soup_fn, shading=cfg)
         d, i, attrs = sr.rasterize(
             [(pos, np.broadcast_to(sr.color, (n, 3)))], return_attrs=True)
         rgb = np.asarray(sr.resolve_rgb(d, i, attrs))
 
         soup = soup_fn(jnp.asarray(pos),
                        jnp.broadcast_to(sr.color, (n, 3)))
-        d1, i1 = rasterize_pallas_csr4(soup, W, H, interpret=True)
+        d1, i1 = rasterize(soup, W, H)
         rgb1 = np.asarray(shade_framebuffer(soup, cam, d1, i1, cfg))
         np.testing.assert_array_equal(np.asarray(i), np.asarray(i1))
         idx = np.asarray(i)
@@ -222,8 +208,8 @@ class TestStreaming:
     def test_streamed_rgb_matches_monolithic_shaded(self):
         """Per-point colors + winner attrs streamed in chunks == the
         monolithic render's shaded image (VERDICT r1 item 6)."""
-        from pointcloud_render_tpu.raster.render import render
-        from pointcloud_render_tpu.raster.primitives import ScreenPrimitives
+        from pointcloud_render.raster.render import render
+        from pointcloud_render.raster.primitives import ScreenPrimitives
 
         cam = make_camera()
         rng = np.random.default_rng(3)
@@ -231,7 +217,7 @@ class TestStreaming:
         pos = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
         col = rng.uniform(0.1, 1.0, (n, 3)).astype(np.float32)
         sr = StreamingRasterizer(cam, chunk_points=256, radius_world=0.03,
-                                 backend="tiled")
+                                 config=RasterConfig(backend="tiled"))
         d, i, attrs = sr.rasterize(
             ((pos[k:k + 256], col[k:k + 256]) for k in range(0, n, 256)),
             return_attrs=True)
@@ -246,10 +232,27 @@ class TestStreaming:
         np.testing.assert_allclose(rgb[hit], np.asarray(fb.rgb)[hit],
                                    atol=5e-4)
 
+    @pytest.mark.parametrize("n_chunks", [1, 2, 4])
+    def test_csr_stream_matches_one_pass(self, n_chunks):
+        """However the cloud is chunked, the streamed csr render has the
+        winners of the one-pass csr render of the whole cloud."""
+        cam = make_camera()
+        rng = np.random.default_rng(31)
+        n = 1024
+        pos = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+        c = n // n_chunks
+        sr = StreamingRasterizer(cam, chunk_points=c, radius_world=0.03)
+        d_s, i_s = sr.rasterize(pos[k:k + c] for k in range(0, n, c))
+        prims = discs_from_points(pos, cam, jnp.full((n,), 0.03),
+                                  np.array([0.3, 0.3, 0.3], np.float32))
+        d_1, i_1 = rasterize(prims, W, H)
+        np.testing.assert_array_equal(np.asarray(i_s), np.asarray(i_1))
+        assert (np.asarray(i_1) >= 0).mean() > 0.05
+
     def test_streaming_composes_with_point_mesh(self):
         """Streaming + ('points',) mesh: chunks sharded over 8 devices,
         result winner-exact vs single-device streaming."""
-        from pointcloud_render_tpu.parallel.render_parallel import (
+        from pointcloud_render.parallel.render_parallel import (
             make_render_mesh,
         )
 
@@ -259,11 +262,12 @@ class TestStreaming:
         pos = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
         mesh = make_render_mesh(1, 8)
         sr_m = StreamingRasterizer(cam, chunk_points=512, radius_world=0.03,
-                                   backend="tiled", mesh=mesh)
+                                   config=RasterConfig(backend="tiled"),
+                                   mesh=mesh)
         d_m, i_m = sr_m.rasterize(pos[k:k + 512] for k in range(0, n, 512))
 
         sr_1 = StreamingRasterizer(cam, chunk_points=512, radius_world=0.03,
-                                   backend="tiled")
+                                   config=RasterConfig(backend="tiled"))
         d_1, i_1 = sr_1.rasterize(pos[k:k + 512] for k in range(0, n, 512))
         np.testing.assert_array_equal(np.asarray(i_m), np.asarray(i_1))
         hit = np.asarray(i_1) >= 0
@@ -273,14 +277,14 @@ class TestStreaming:
 
 class TestShadows:
     def _scene(self, cam):
-        from pointcloud_render_tpu.raster.render import ground_plane
+        from pointcloud_render.raster.render import ground_plane
 
         # One fat splat hovering above the ground, emitter overhead.
         disc = discs_from_points(
             jnp.asarray([[0.0, 0.0, 0.2]], jnp.float32), cam,
             jnp.full((1,), 0.15, jnp.float32),
             np.array([0.3, 0.3, 0.3], np.float32))
-        from pointcloud_render_tpu.raster.primitives import ScreenPrimitives
+        from pointcloud_render.raster.primitives import ScreenPrimitives
 
         return ScreenPrimitives.concatenate(
             [ground_plane(cam, 3.0, (0, 0, -0.5)), disc])
@@ -292,17 +296,17 @@ class TestShadows:
         """The light-view depth raster + shadow test darkens ground
         pixels beneath the splat (VERDICT r2 item 6) and leaves far
         ground fully lit; depth/index buffers are untouched."""
-        from pointcloud_render_tpu.raster.render import RasterConfig, rasterize
-        from pointcloud_render_tpu.shading.shade import (
+        from pointcloud_render.raster.render import RasterConfig, rasterize
+        from pointcloud_render.shading.shade import (
             ShadingConfig,
             shade_framebuffer,
         )
-        from pointcloud_render_tpu.shading.shadow import (
+        from pointcloud_render.shading.shadow import (
             light_camera,
             render_shadow_depth,
             shadow_factor,
         )
-        from tests.test_raster import H, W, make_camera
+        from test_raster import H, W, make_camera
 
         cam = make_camera()
         soup = self._scene(cam)
@@ -332,17 +336,17 @@ class TestShadows:
     def test_shadow_determinism(self):
         """Same scene twice -> bit-identical shadowed images (no
         sampling anywhere in the pass)."""
-        from pointcloud_render_tpu.raster.render import RasterConfig, rasterize
-        from pointcloud_render_tpu.shading.shade import (
+        from pointcloud_render.raster.render import RasterConfig, rasterize
+        from pointcloud_render.shading.shade import (
             ShadingConfig,
             shade_framebuffer,
         )
-        from pointcloud_render_tpu.shading.shadow import (
+        from pointcloud_render.shading.shadow import (
             light_camera,
             render_shadow_depth,
             shadow_factor,
         )
-        from tests.test_raster import H, W, make_camera
+        from test_raster import H, W, make_camera
 
         cam = make_camera()
         outs = []
@@ -360,7 +364,7 @@ class TestShadows:
 
 class TestAA:
     def test_downsample_matches_reference(self):
-        from pointcloud_render_tpu.shading import aa
+        from pointcloud_render.shading import aa
 
         rng = np.random.default_rng(5)
         hi = rng.uniform(0, 1, (16, 24, 3)).astype(np.float32)
@@ -371,7 +375,7 @@ class TestAA:
             np.testing.assert_allclose(got, want, atol=1e-5)
 
     def test_kernel_normalized(self):
-        from pointcloud_render_tpu.shading import aa
+        from pointcloud_render.shading import aa
 
         for ss in (2, 4):
             k = aa.gaussian_kernel(ss)
@@ -385,7 +389,7 @@ class TestAA:
         truncation max(0, exp(-x^2/2s^2) - exp(-r^2/2s^2))) applied as a
         film convolution over the supersample texels (VERDICT r2 item 9;
         /root/reference/traj_ball_renderer.py:20-27)."""
-        from pointcloud_render_tpu.shading import aa
+        from pointcloud_render.shading import aa
 
         stddev, radius = 0.5, 2.0
         rng = np.random.default_rng(12)
@@ -423,8 +427,8 @@ class TestAA:
     def test_supersampled_pipeline_smooths_edges(self):
         """ss=2 produces intermediate values on disc edges; ss=1 keeps the
         hard single-sample contract (and identical winner buffers)."""
-        from pointcloud_render_tpu.run.pipeline import _make_step
-        from pointcloud_render_tpu.raster.render import RasterConfig
+        from pointcloud_render.run.pipeline import _make_step
+        from pointcloud_render.raster.render import RasterConfig, rasterize
 
         preset = PRESETS["traj_ball"]
         rng = np.random.default_rng(6)
@@ -514,7 +518,7 @@ class TestDynamics:
 
 class TestTrajectoryScan:
     def _small(self, monkeypatch):
-        import pointcloud_render_tpu.scene.camera as cam_mod
+        import pointcloud_render.scene.camera as cam_mod
 
         orig = cam_mod.Camera.__init__
 
@@ -593,20 +597,42 @@ class TestTrajectoryScan:
             np.testing.assert_array_equal(a, b)
 
     def test_capacity_violation_is_loud(self, monkeypatch):
-        """An UNPROBED frame that exceeds the fixed entry capacity must
-        raise, not silently truncate (VERDICT r2 item 4): the scan
-        carries the device-side running max of true_entry_count and the
-        post-hoc certificate trips on it."""
+        """A frame that exceeds a fixed capacity must raise, not silently
+        truncate: the scan carries the device-side running max of the
+        capacity overflow and the post-hoc certificate trips on it."""
         self._small(monkeypatch)
         rng = np.random.default_rng(4)
         pos = rng.uniform(-0.4, 0.4, (64, 3)).astype(np.float32)
         vel = rng.normal(size=(64, 3)).astype(np.float32)
         tr = TrajectoryScanRenderer(
             PRESETS["traj_ball"],
-            RasterConfig(backend="pallas4", entry_capacity=8),
+            RasterConfig(backend="tiled", max_per_tile=32),
             frames_per_chunk=2)
-        with pytest.raises(RuntimeError, match="entry capacity violated"):
+        with pytest.raises(RuntimeError, match="overflow"):
             tr.render_frames(pos, vel, [0, 199])
+
+    @pytest.mark.parametrize("preset", ["traj_ball", "traj_vel", "traj",
+                                        "example", "traj_original"])
+    def test_auto_backend_matches_tiled(self, monkeypatch, preset):
+        """The main path (backend "auto" = csr, its big list sized by the
+        trajectory probe) renders the same frames as the capacity-raised
+        tiled backend."""
+        self._small(monkeypatch)
+        rng = np.random.default_rng(9)
+        pos = rng.uniform(-0.4, 0.4, (96, 3)).astype(np.float32)
+        vel = rng.normal(size=(96, 3)).astype(np.float32)
+        frames = {}
+        for backend in ("auto", "tiled"):
+            tr = TrajectoryScanRenderer(
+                PRESETS[preset],
+                RasterConfig(backend=backend, max_per_tile=4096),
+                frames_per_chunk=2)
+            frames[backend], _ = tr.render_frames(pos, vel, [20, 199])
+        for a, b in zip(frames["auto"], frames["tiled"]):
+            # sRGB u8: disc-rim sqrt can amplify a 1-ulp FMA difference
+            # into one code value.
+            assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+            assert (a != b).mean() < 1e-3
 
     def test_motion_coloring(self, monkeypatch):
         self._small(monkeypatch)
@@ -626,12 +652,12 @@ class TestTrajectoryScan:
 
 class TestFaultToleranceResume:
     def test_batch_resumes_after_injected_failure(self, tmp_path, monkeypatch):
-        from pointcloud_render_tpu.run import batch as batch_mod
-        from pointcloud_render_tpu.run.batch import run_batch
-        from pointcloud_render_tpu.run.metrics import MetricsSink
-        from pointcloud_render_tpu.run.pipeline import FramePipeline
-        from pointcloud_render_tpu.io import ply as plyio
-        import pointcloud_render_tpu.scene.camera as cam_mod
+        from pointcloud_render.run import batch as batch_mod
+        from pointcloud_render.run.batch import run_batch
+        from pointcloud_render.run.metrics import MetricsSink
+        from pointcloud_render.run.pipeline import FramePipeline
+        from pointcloud_render.io import ply as plyio
+        import pointcloud_render.scene.camera as cam_mod
         import os
 
         orig_init = cam_mod.Camera.__init__
@@ -703,8 +729,8 @@ class TestDifferentiability:
 
 class TestCameraPath:
     def test_reference_paths_equivalent(self):
-        from pointcloud_render_tpu.scene import camera as cam_mod
-        from pointcloud_render_tpu.scene.camera_path import REFERENCE_PATHS
+        from pointcloud_render.scene import camera as cam_mod
+        from pointcloud_render.scene.camera_path import REFERENCE_PATHS
 
         for name, path in REFERENCE_PATHS.items():
             for f in [0, 19, 100, 199, 200, 210, 219]:
@@ -715,7 +741,7 @@ class TestCameraPath:
                 np.testing.assert_allclose(traced, expect, atol=1e-5)
 
     def test_multi_segment_custom_path(self):
-        from pointcloud_render_tpu.scene.camera_path import CameraPath
+        from pointcloud_render.scene.camera_path import CameraPath
 
         p = CameraPath(waypoints=((0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 2)),
                        segment_frames=(10, 10, 10))
@@ -727,7 +753,7 @@ class TestCameraPath:
                                    (1, 0.5, 1), atol=1e-6)
 
     def test_catmull_smooth_passes_waypoints(self):
-        from pointcloud_render_tpu.scene.camera_path import CameraPath
+        from pointcloud_render.scene.camera_path import CameraPath
 
         p = CameraPath(waypoints=((0, 0, 0), (1, 1, 0), (2, 0, 0)),
                        segment_frames=(10, 10), interpolation="catmull")
@@ -737,7 +763,7 @@ class TestCameraPath:
         assert mid[1] > 0.5 - 1e-9
 
     def test_camera_object(self):
-        from pointcloud_render_tpu.scene.camera_path import CameraPath
+        from pointcloud_render.scene.camera_path import CameraPath
 
         p = CameraPath(waypoints=((2, 2, 2),), segment_frames=())
         cam = p.camera(0, width=128, height=64)
@@ -745,7 +771,7 @@ class TestCameraPath:
         np.testing.assert_allclose(np.asarray(cam.origin), (2, 2, 2))
 
     def test_zero_segment_rejected(self):
-        from pointcloud_render_tpu.scene.camera_path import CameraPath
+        from pointcloud_render.scene.camera_path import CameraPath
 
         with pytest.raises(ValueError, match="positive"):
             CameraPath(waypoints=((0, 0, 0), (1, 1, 1), (2, 2, 2)),
@@ -756,7 +782,7 @@ class TestVideoAndObj:
     def test_gif_roundtrip(self, tmp_path):
         from PIL import Image
 
-        from pointcloud_render_tpu.run.video import write_gif
+        from pointcloud_render.run.video import write_gif
 
         frames = [np.full((16, 24, 3), v, np.uint8) for v in (0, 128, 255)]
         path = write_gif(str(tmp_path / "a.gif"), frames, fps=10)
@@ -764,8 +790,8 @@ class TestVideoAndObj:
         assert getattr(img, "n_frames", 1) == 3
 
     def test_obj_roundtrip_droplet(self, tmp_path):
-        from pointcloud_render_tpu.geometry.droplet import droplet_mesh
-        from pointcloud_render_tpu.io.obj import read_obj, write_obj
+        from pointcloud_render.geometry.droplet import droplet_mesh
+        from pointcloud_render.io.obj import read_obj, write_obj
 
         v, f = droplet_mesh()
         path = str(tmp_path / "d.obj")
@@ -775,7 +801,7 @@ class TestVideoAndObj:
         np.testing.assert_array_equal(f2, f)
 
     def test_obj_quads_and_slashes(self, tmp_path):
-        from pointcloud_render_tpu.io.obj import read_obj
+        from pointcloud_render.io.obj import read_obj
 
         p = tmp_path / "q.obj"
         p.write_text("v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\n"
@@ -790,7 +816,7 @@ class TestHistoryTrailScan:
         """traj preset on the scan renderer: rolling history buffer in the
         scan state (SURVEY §7 build plan item 5) — trails appear as real
         motion accumulates, with no preload pass."""
-        import pointcloud_render_tpu.scene.camera as cam_mod
+        import pointcloud_render.scene.camera as cam_mod
 
         orig = cam_mod.Camera.__init__
 
@@ -832,8 +858,8 @@ class TestPenumbraAndGGX:
     (VERDICT r3 item 7).  Both rgb-only; depth/index untouched."""
 
     def _scene(self, cam, disc_z):
-        from pointcloud_render_tpu.raster.primitives import ScreenPrimitives
-        from pointcloud_render_tpu.raster.render import ground_plane
+        from pointcloud_render.raster.primitives import ScreenPrimitives
+        from pointcloud_render.raster.render import ground_plane
 
         disc = discs_from_points(
             np.array([[0.0, 0.0, disc_z]], np.float32), cam,
@@ -845,14 +871,14 @@ class TestPenumbraAndGGX:
     def _shadow_softness(self, disc_z):
         """Fraction of the occluder's shadow pixels that are PARTIALLY
         lit (penumbra) on an overhead view of the ground."""
-        from pointcloud_render_tpu.raster.render import RasterConfig, rasterize
-        from pointcloud_render_tpu.scene.camera import Camera
-        from pointcloud_render_tpu.shading.shadow import (
+        from pointcloud_render.raster.render import RasterConfig, rasterize
+        from pointcloud_render.scene.camera import Camera
+        from pointcloud_render.shading.shadow import (
             light_camera,
             render_shadow_depth,
             shadow_factor,
         )
-        from tests.test_raster import H, W
+        from test_raster import H, W
 
         cam = Camera(origin=jnp.array([0.8, 0.8, 2.5], jnp.float32),
                      target=jnp.array([0.0, 0.0, -0.5], jnp.float32),
@@ -877,13 +903,13 @@ class TestPenumbraAndGGX:
         assert far > near + 0.05, (near, far)
 
     def test_ggx_adds_ground_highlight_rgb_only(self):
-        from pointcloud_render_tpu.raster.render import RasterConfig, rasterize
-        from pointcloud_render_tpu.scene.camera import Camera
-        from pointcloud_render_tpu.shading.shade import (
+        from pointcloud_render.raster.render import RasterConfig, rasterize
+        from pointcloud_render.scene.camera import Camera
+        from pointcloud_render.shading.shade import (
             ShadingConfig,
             shade_framebuffer,
         )
-        from tests.test_raster import H, W
+        from test_raster import H, W
 
         # Camera looking steeply down: ground points beneath it see the
         # mirror direction of the overhead key -> a visible lobe.
@@ -921,13 +947,13 @@ class TestPenumbraAndGGX:
         pixels BRIGHTEN (white-ground re-radiation), upward-facing disc
         pixels and every non-disc pixel are untouched, and depth/index
         never change (rgb-only by construction)."""
-        from pointcloud_render_tpu.raster.render import RasterConfig, rasterize
-        from pointcloud_render_tpu.scene.camera import Camera
-        from pointcloud_render_tpu.shading.shade import (
+        from pointcloud_render.raster.render import RasterConfig, rasterize
+        from pointcloud_render.scene.camera import Camera
+        from pointcloud_render.shading.shade import (
             ShadingConfig,
             shade_framebuffer,
         )
-        from tests.test_raster import H, W
+        from test_raster import H, W
 
         # Camera slightly BELOW the disc center so underside pixels
         # (downward-facing sphere normals) are visible.
@@ -955,11 +981,11 @@ class TestPenumbraAndGGX:
         """gi > 0 routes the pipeline through the re-shade branch: the
         depth/index contract is bit-identical to gi=0, and the shaded
         rgb is invariant under point-order permutation."""
-        from pointcloud_render_tpu.configs import PRESETS
-        from pointcloud_render_tpu.raster.render import RasterConfig
-        from pointcloud_render_tpu.run.pipeline import _make_step
-        from pointcloud_render_tpu.shading.shade import ShadingConfig
-        from tests.test_raster import H, W
+        from pointcloud_render.configs import PRESETS
+        from pointcloud_render.raster.render import RasterConfig, rasterize
+        from pointcloud_render.run.pipeline import _make_step
+        from pointcloud_render.shading.shade import ShadingConfig
+        from test_raster import H, W
 
         preset = PRESETS["traj_ball"]
         rng = np.random.default_rng(5)
@@ -975,8 +1001,8 @@ class TestPenumbraAndGGX:
             return step(jnp.asarray(p), jnp.asarray(v), jnp.int32(120),
                         placeholder, placeholder)
 
-        fb0, _, _ = run(0.0, pos, vel)
-        fb1, _, _ = run(0.4, pos, vel)
+        fb0, _ = run(0.0, pos, vel)
+        fb1, _ = run(0.4, pos, vel)
         np.testing.assert_array_equal(np.asarray(fb0.index),
                                       np.asarray(fb1.index))
         np.testing.assert_array_equal(np.asarray(fb0.depth),
@@ -985,18 +1011,18 @@ class TestPenumbraAndGGX:
         # Permutation invariance of the lit image (same scene, shuffled
         # point order -> identical rgb).
         perm = rng.permutation(64)
-        fb2, _, _ = run(0.4, pos[perm], vel[perm])
+        fb2, _ = run(0.4, pos[perm], vel[perm])
         np.testing.assert_array_equal(np.asarray(fb1.rgb),
                                       np.asarray(fb2.rgb))
 
     def test_ggx_pipeline_branch_keeps_depth_index(self):
         """ground_spec > 0 routes the pipeline through the re-shade
         branch: same depth/index as the fused path, rgb re-lit."""
-        from pointcloud_render_tpu.configs import PRESETS
-        from pointcloud_render_tpu.raster.render import RasterConfig
-        from pointcloud_render_tpu.run.pipeline import _make_step
-        from pointcloud_render_tpu.shading.shade import ShadingConfig
-        from tests.test_raster import H, W
+        from pointcloud_render.configs import PRESETS
+        from pointcloud_render.raster.render import RasterConfig, rasterize
+        from pointcloud_render.run.pipeline import _make_step
+        from pointcloud_render.shading.shade import ShadingConfig
+        from test_raster import H, W
 
         preset = PRESETS["traj_ball"]
         rng = np.random.default_rng(3)
@@ -1011,8 +1037,8 @@ class TestPenumbraAndGGX:
                               film=(W, H))
             return step(pos, vel, jnp.int32(120), placeholder, placeholder)
 
-        fb0, _, _ = run(0.0)
-        fb1, _, _ = run(0.8)
+        fb0, _ = run(0.0)
+        fb1, _ = run(0.8)
         np.testing.assert_array_equal(np.asarray(fb0.index),
                                       np.asarray(fb1.index))
         np.testing.assert_array_equal(np.asarray(fb0.depth),

@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 
 import oracles
-from pointcloud_render_tpu.geometry import droplet, rotation, trails
-from pointcloud_render_tpu.scene import camera, normalize
+from pointcloud_render.geometry import droplet, rotation, trails
+from pointcloud_render.scene import camera, normalize
 
 RNG = np.random.default_rng(0)
 

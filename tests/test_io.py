@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from pointcloud_render_tpu.io import loaders, ply, png
-from pointcloud_render_tpu.scene.pointcloud import PointCloud
+from pointcloud_render.io import loaders, ply, png
+from pointcloud_render.scene.pointcloud import PointCloud
 
 RNG = np.random.default_rng(1)
 
@@ -147,8 +147,8 @@ class TestBigEndianPly:
 
 class TestNpzStack:
     def test_traj_pipeline_takes_frame0_of_stack(self, tmp_path):
-        from pointcloud_render_tpu.configs import PRESETS
-        from pointcloud_render_tpu.run.pipeline import FramePipeline
+        from pointcloud_render.configs import PRESETS
+        from pointcloud_render.run.pipeline import FramePipeline
 
         rng = np.random.default_rng(3)
         stack = rng.uniform(-1, 1, (3, 30, 6)).astype(np.float32)

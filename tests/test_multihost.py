@@ -1,13 +1,12 @@
-"""Real 2-process multihost test (DCN simulation on CPU).
+"""Real 2-process multihost test (a two-host cluster simulated on CPU).
 
 Spawns two child interpreters, each a jax.distributed process with 4
 forced CPU devices (8 global).  The children build the pod mesh via
 parallel.multihost (frames across processes, points within), run the
 full-scene sharded batch render, and each process checks ITS frames
 against a reference rendered by a plain single-process 4-device
-point-sharded run.  This exercises multihost.initialize() + the DCN
-frame-DP layout end-to-end — the piece VERDICT r1 flagged as never run
-multi-process.
+point-sharded run.  This exercises multihost.initialize() + the
+cross-host frame-DP layout end-to-end.
 """
 
 import os
@@ -22,7 +21,7 @@ import os, sys
 pid = int(sys.argv[1]); port = sys.argv[2]
 import jax
 jax.config.update("jax_platforms", "cpu")
-from pointcloud_render_tpu.parallel import multihost
+from pointcloud_render.parallel import multihost
 multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
                      num_processes=2, process_id=pid)
 import jax.numpy as jnp
@@ -31,17 +30,17 @@ assert jax.process_count() == 2, jax.process_count()
 assert len(jax.devices()) == 8, len(jax.devices())
 assert jax.local_device_count() == 4
 
-from pointcloud_render_tpu.configs import PRESETS
-from pointcloud_render_tpu.parallel.multihost import make_pod_mesh
-from pointcloud_render_tpu.parallel.render_parallel import (
+from pointcloud_render.configs import PRESETS
+from pointcloud_render.parallel.multihost import make_pod_mesh
+from pointcloud_render.parallel.render_parallel import (
     make_render_mesh, render_scene_batch_sharded, render_scene_point_sharded)
-from pointcloud_render_tpu.raster.render import RasterConfig
+from pointcloud_render.raster.render import RasterConfig
 
 mesh = make_pod_mesh(points_per_host_axis=4)
 assert dict(mesh.shape) == {"frames": 2, "points": 4}
-# 'points' must stay within one process's local devices (ICI domain).
+# 'points' must stay within one process's local devices (one host).
 for row in mesh.devices:
-    assert len({d.process_index for d in row}) == 1, "points axis crosses DCN"
+    assert len({d.process_index for d in row}) == 1, "points axis crosses hosts"
 
 preset = PRESETS["traj_ball"]
 rng = np.random.default_rng(11)
@@ -73,7 +72,7 @@ ref = jax.jit(lambda p, v: render_scene_point_sharded(
 got_idx = np.asarray(out.index.addressable_data(0))[0]
 np.testing.assert_array_equal(got_idx, np.asarray(ref.index))
 assert int(np.asarray(out.overflow.addressable_data(0))[0]) == 0
-print(f"proc {pid} OK: frame {k} winner-exact over DCN mesh")
+print(f"proc {pid} OK: frame {k} winner-exact over the two-host mesh")
 '''
 
 

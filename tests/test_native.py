@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from pointcloud_render_tpu.io import loaders, native, ply
+from pointcloud_render.io import loaders, native, ply
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library not built")

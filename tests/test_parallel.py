@@ -3,17 +3,18 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from pointcloud_render_tpu.parallel import (
+from pointcloud_render.parallel import (
     make_render_mesh,
     render_frames_dp,
     render_point_sharded,
 )
-from pointcloud_render_tpu.parallel.render_parallel import render_batch_sharded
-from pointcloud_render_tpu.raster import xla_tiled
-from pointcloud_render_tpu.raster.primitives import discs_from_points
-from pointcloud_render_tpu.raster.render import RasterConfig
-from pointcloud_render_tpu.scene.camera import Camera
+from pointcloud_render.parallel.render_parallel import render_batch_sharded
+from pointcloud_render.raster import xla_tiled
+from pointcloud_render.raster.primitives import discs_from_points
+from pointcloud_render.raster.render import RasterConfig
+from pointcloud_render.scene.camera import Camera
 
 W, H = 256, 64
 
@@ -130,13 +131,13 @@ def test_scene_point_sharded_matches_pipeline():
     point-sharded 8 ways == the single-device FramePipeline frame,
     winner-exact (VERDICT r1 item 4; scene scope matches
     /root/reference/traj_ball_renderer.py:309-333)."""
-    from pointcloud_render_tpu.configs import PRESETS
-    from pointcloud_render_tpu.parallel.render_parallel import (
+    from pointcloud_render.configs import PRESETS
+    from pointcloud_render.parallel.render_parallel import (
         render_scene_point_sharded,
     )
-    from pointcloud_render_tpu.run.pipeline import build_primitives
-    from pointcloud_render_tpu.raster.render import render
-    from pointcloud_render_tpu.scene.camera import TARGETS, camera_origin_jax
+    from pointcloud_render.run.pipeline import build_primitives
+    from pointcloud_render.raster.render import render
+    from pointcloud_render.scene.camera import TARGETS, camera_origin_jax
 
     preset = PRESETS["traj_ball"]
     rng = np.random.default_rng(7)
@@ -182,17 +183,17 @@ def test_scene_point_sharded_matches_pipeline():
     assert (kinds == 2).any(), "no ground triangle pixels"
 
 
-def test_scene_point_sharded_pallas6_backend():
-    """The sharded full-scene path on the v6 anchor-sorted kernel — the
-    TPU production default — winner-exact vs the capacity-raised tiled
-    truth, 8-way point-sharded (interpret mode on the CPU mesh)."""
-    from pointcloud_render_tpu.configs import PRESETS
-    from pointcloud_render_tpu.parallel.render_parallel import (
+def test_scene_point_sharded_csr_backend():
+    """The sharded full-scene path on the csr backend — the production
+    default — winner-exact vs the capacity-raised tiled truth, 8-way
+    point-sharded."""
+    from pointcloud_render.configs import PRESETS
+    from pointcloud_render.parallel.render_parallel import (
         render_scene_point_sharded,
     )
-    from pointcloud_render_tpu.run.pipeline import build_primitives
-    from pointcloud_render_tpu.raster.render import render
-    from pointcloud_render_tpu.scene.camera import TARGETS, camera_origin_jax
+    from pointcloud_render.run.pipeline import build_primitives
+    from pointcloud_render.raster.render import render
+    from pointcloud_render.scene.camera import TARGETS, camera_origin_jax
 
     preset = PRESETS["traj_ball"]
     rng = np.random.default_rng(7)
@@ -200,7 +201,7 @@ def test_scene_point_sharded_pallas6_backend():
     pos = rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32)
     vel = (rng.normal(size=(n, 3)) * 3).astype(np.float32)
     fi = 120
-    cfg = RasterConfig(backend="pallas6")
+    cfg = RasterConfig()
     mesh = make_render_mesh(1, 8)
 
     out = jax.jit(lambda p, v: render_scene_point_sharded(
@@ -228,30 +229,28 @@ def test_scene_point_sharded_pallas6_backend():
                                np.asarray(fb.depth)[hit], rtol=2e-5)
 
 
-def test_scene_point_sharded_pallas4_backend():
-    """The sharded full-scene path on the CAPACITY-FREE v4 Pallas kernel
-    (VERDICT r2 item 3): winner-exact vs the capacity-raised tiled truth
-    on the same soup, 8-way point-sharded (interpret mode on the CPU
-    mesh; streaming.py proves the same composition on real chips)."""
-    from pointcloud_render_tpu.configs import PRESETS
-    from pointcloud_render_tpu.parallel.render_parallel import (
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_scene_point_sharded_csr_shard_count_invariance(n_shards):
+    """The csr backend under 2- and 4-way point sharding gives the same
+    index image as the one-device csr render of the same frame (the
+    device-count invariance the four-card run checks)."""
+    from pointcloud_render.configs import PRESETS
+    from pointcloud_render.parallel.render_parallel import (
         render_scene_point_sharded,
     )
-    from pointcloud_render_tpu.run.pipeline import build_primitives
-    from pointcloud_render_tpu.raster.render import render
-    from pointcloud_render_tpu.scene.camera import TARGETS, camera_origin_jax
+    from pointcloud_render.run.pipeline import build_primitives
+    from pointcloud_render.raster.render import render
+    from pointcloud_render.scene.camera import TARGETS, camera_origin_jax
 
-    preset = PRESETS["traj_ball"]
-    rng = np.random.default_rng(7)
-    n = 256
+    preset = PRESETS["traj_vel"]
+    rng = np.random.default_rng(17)
+    n = 128
     pos = rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32)
     vel = (rng.normal(size=(n, 3)) * 3).astype(np.float32)
-    fi = 120
-    cfg = RasterConfig(backend="pallas4")
-    mesh = make_render_mesh(1, 8)
-
+    fi = 150
+    mesh = make_render_mesh(1, n_shards)
     out = jax.jit(lambda p, v: render_scene_point_sharded(
-        preset, p, cfg, mesh, velocities=v, frame_index=fi,
+        preset, p, RasterConfig(), mesh, velocities=v, frame_index=fi,
         width=W, height=H))(pos, vel)
     assert int(out.overflow) == 0
 
@@ -262,24 +261,15 @@ def test_scene_point_sharded_pallas4_backend():
         fov_x_degrees=preset.fov_x_degrees, width=W, height=H)
     prims = build_primitives(preset, cam, jnp.asarray(pos),
                              jnp.asarray(vel), jnp.int32(fi))
-    fb = render(prims, cam, RasterConfig(backend="tiled", max_per_tile=1024))
-
+    fb = render(prims, cam, RasterConfig())
     np.testing.assert_array_equal(np.asarray(out.index), np.asarray(fb.index))
-    hit = np.asarray(fb.index) >= 0
-    assert hit.mean() > 0.05
-    # Triangle/capsule depths may differ by FMA contraction (test_raster
-    # conventions); winners above are exact.
-    np.testing.assert_allclose(np.asarray(out.depth)[hit],
-                               np.asarray(fb.depth)[hit], rtol=2e-5)
-    kinds = np.asarray(prims.kind)[np.asarray(out.index)[hit]]
-    assert (kinds == 1).any(), "no trail capsule pixels"
-    assert (kinds == 2).any(), "no ground triangle pixels"
+    assert (np.asarray(fb.index) >= 0).mean() > 0.05
 
 
 def test_scene_batch_sharded_2d_mesh():
     """(frames x points) 2D mesh full-scene batch == per-frame truth."""
-    from pointcloud_render_tpu.configs import PRESETS
-    from pointcloud_render_tpu.parallel.render_parallel import (
+    from pointcloud_render.configs import PRESETS
+    from pointcloud_render.parallel.render_parallel import (
         render_scene_batch_sharded,
         render_scene_point_sharded,
     )
@@ -311,9 +301,91 @@ def test_scene_batch_sharded_2d_mesh():
                                    np.asarray(ref.rgb)[hit], atol=5e-4)
 
 
+@pytest.mark.parametrize("layout", ["points_1", "points_4", "batch_2x2"])
+def test_scene_sharded_bit_equal_to_frame_pipeline(layout):
+    """Sharded full-scene frames match the one-device FramePipeline
+    frames of the same frames: index bit-equal, disc depth bit-equal,
+    every other depth within an ulp (the exactness contract).  The
+    device-count invariance holds against the production one-card
+    program, not only against the sharded code on a smaller mesh."""
+    from pointcloud_render.configs import PRESETS
+    from pointcloud_render.parallel.render_parallel import (
+        render_scene_batch_sharded,
+        render_scene_point_sharded,
+    )
+    from pointcloud_render.run.pipeline import (
+        FramePipeline,
+        build_primitives,
+    )
+    from pointcloud_render.scene.camera import TARGETS
+
+    preset = PRESETS["traj_ball"]
+    w, h = 1920, 1080  # the full film: edge flips show at this size
+    rng = np.random.default_rng(21)
+    n = 4000
+    pos = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    vel = rng.normal(0.0, 2.0, (n, 3)).astype(np.float32)
+    fis = np.array([60, 120], np.int32)
+    cfg = RasterConfig(max_big=4096)
+    if layout == "batch_2x2":
+        out = jax.jit(lambda p, v, f: render_scene_batch_sharded(
+            preset, p, v, f, cfg, make_render_mesh(2, 2), width=w,
+            height=h))(np.stack([pos] * 2), np.stack([vel] * 2), fis)
+        frames = [(int(f), out.index[k], out.depth[k])
+                  for k, f in enumerate(fis)]
+    else:
+        mesh = make_render_mesh(1, int(layout.split("_")[1]))
+        # The frame index is an argument, as in FramePipeline: a
+        # constant one would let XLA fold the pose at compile time.
+        out = jax.jit(lambda p, v, f: render_scene_point_sharded(
+            preset, p, cfg, mesh, velocities=v, frame_index=f, width=w,
+            height=h))(pos, vel, fis[1])
+        frames = [(int(fis[1]), out.index, out.depth)]
+    assert int(np.asarray(out.overflow).max()) == 0
+
+    # Soup layout: the ground's rows, then one disc per point.
+    cam = Camera(origin=jnp.zeros(3, jnp.float32),
+                 target=np.asarray(TARGETS[preset.camera_preset]))
+    ground = build_primitives(preset, cam, jnp.asarray(pos[:1]),
+                              jnp.asarray(vel[:1]), 0,
+                              return_layout=True)[1][0][0]
+    pipe = FramePipeline(preset, cfg, width=w, height=h)
+    for fi, index, depth in frames:
+        fb = pipe.render_array(np.concatenate([pos, vel], axis=1), fi)
+        ref_i, ref_d = np.asarray(fb.index), np.asarray(fb.depth)
+        np.testing.assert_array_equal(np.asarray(index), ref_i)
+        hit = ref_i >= 0
+        disc = (ref_i >= ground) & (ref_i < ground + n)
+        assert hit.mean() > 0.05 and disc.mean() > 0.01
+        np.testing.assert_array_equal(np.asarray(depth)[disc], ref_d[disc])
+        np.testing.assert_allclose(np.asarray(depth)[hit], ref_d[hit],
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("backend", ["auto", "tiled"])
+def test_2d_mesh_frames_by_points_matches_one_device(backend):
+    """The 2D (frames x points) batch render equals each frame's one-
+    device render on the same backend (csr by default)."""
+    from pointcloud_render.raster.render import rasterize
+
+    cam = make_camera()
+    rng = np.random.default_rng(13)
+    f, n = 2, 256
+    pos = rng.uniform(-0.5, 0.5, (f, n, 3)).astype(np.float32)
+    radii = np.full((f, n), 0.03, np.float32)
+    colors = np.broadcast_to(np.array([0.3, 0.3, 0.3], np.float32),
+                             (f, n, 3)).copy()
+    cfg = RasterConfig(backend=backend, max_per_tile=256)
+    out = jax.jit(lambda p, r, c: render_batch_sharded(
+        p, r, c, cam, cfg, make_render_mesh(2, 4)))(pos, radii, colors)
+    for k in range(f):
+        prims = discs_from_points(pos[k], cam, radii[k], colors[k])
+        _, ik = rasterize(prims, W, H, cfg)
+        np.testing.assert_array_equal(np.asarray(out[2][k]), np.asarray(ik))
+
+
 def test_sharded_overflow_is_reported():
-    """Overflow density (tiny max_per_tile) must be COUNTED, not silent
-    (VERDICT r1 item 5)."""
+    """Overflow density (tiny max_per_tile) must be COUNTED, not silent."""
     cam = make_camera()
     rng = np.random.default_rng(9)
     n = 2048
@@ -333,7 +405,7 @@ def test_sharded_overflow_is_reported():
 def test_pod_mesh_layout():
     """make_pod_mesh keeps the 'points' axis within one host's devices
     (simulated: all 8 CPU devices belong to this host)."""
-    from pointcloud_render_tpu.parallel.multihost import make_pod_mesh
+    from pointcloud_render.parallel.multihost import make_pod_mesh
 
     mesh = make_pod_mesh(points_per_host_axis=4)
     assert mesh.axis_names == ("frames", "points")
@@ -347,29 +419,25 @@ def test_pod_mesh_layout():
 
 
 def test_shard_dispatch_honors_max_big():
-    """The sharded pallas dispatch must forward config.max_big — the
-    documented overflow remedy is 'raise max_big and rerun', which was
-    a no-op when the kernel always ran at its default (review r3)."""
-    from pointcloud_render_tpu.parallel.render_parallel import (
-        _rasterize_shard,
+    """The sharded path must forward config.max_big — the documented
+    overflow remedy is 'raise max_big and rerun'."""
+    from pointcloud_render.parallel.render_parallel import (
+        render_point_sharded,
     )
 
     cam = make_camera()
     rng = np.random.default_rng(11)
-    n = 1400  # > the 1024 default big list
+    n = 1024
     pos = rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32)
-    # Huge discs: every one exceeds the 2x2-tile span -> all big-listed.
-    prims = discs_from_points(
-        pos, cam, np.full((n,), 0.2, np.float32),
-        np.array([0.3, 0.3, 0.3], np.float32))
-
-    for backend in ("pallas4", "pallas6"):
-        small = RasterConfig(backend=backend, max_big=256)
-        big = RasterConfig(backend=backend, max_big=2048)
-        *_, ovf_small = _rasterize_shard(prims, cam, small)
-        *_, ovf_big = _rasterize_shard(prims, cam, big)
-        assert int(ovf_small) > 0, backend
-        assert int(ovf_big) == 0, backend
+    # Huge discs: every one exceeds the 2x2-tile span -> all big-listed
+    # (128 per shard on the 8-device mesh).
+    radii = np.full((n,), 0.6, np.float32)
+    colors = np.broadcast_to(np.array([0.3, 0.3, 0.3], np.float32), (n, 3))
+    mesh = make_render_mesh(1, 8)
+    for max_big, overflows in ((64, True), (256, False)):
+        *_, ovf = render_point_sharded(pos, radii, colors, cam,
+                                       RasterConfig(max_big=max_big), mesh)
+        assert (int(ovf) > 0) == overflows, max_big
 
 
 def test_streamed_soup_mesh_sharded_matches_monolithic():
@@ -378,9 +446,9 @@ def test_streamed_soup_mesh_sharded_matches_monolithic():
     single-device render — bit-exact ids for the single-chunk stream,
     winner-surface/depth-exact across two chunks (VERDICT r3 item 5:
     deletes the streaming.py soup_fn + mesh scope guard)."""
-    from pointcloud_render_tpu.configs import PRESETS
-    from pointcloud_render_tpu.parallel.streaming import StreamingRasterizer
-    from pointcloud_render_tpu.run.pipeline import build_primitives
+    from pointcloud_render.configs import PRESETS
+    from pointcloud_render.parallel.streaming import StreamingRasterizer
+    from pointcloud_render.run.pipeline import build_primitives
 
     preset = PRESETS["traj_ball"]
     cam = make_camera()
@@ -395,7 +463,8 @@ def test_streamed_soup_mesh_sharded_matches_monolithic():
 
     mesh = make_render_mesh(1, 8)
     kw = dict(chunk_points=n, radius_world=preset.point_radius,
-              backend="tiled", soup_fn=soup_fn, mesh=mesh)
+              config=RasterConfig(backend="tiled", max_per_tile=4096),
+              soup_fn=soup_fn, mesh=mesh)
     colors = np.broadcast_to(np.array([0.3, 0.3, 0.3], np.float32), (n, 3))
 
     # Monolithic truth (same soup, one device, no mesh).
@@ -425,20 +494,18 @@ def test_streamed_soup_mesh_sharded_matches_monolithic():
     np.testing.assert_array_equal(np.asarray(i_t) >= 0, hit)
 
 
-def test_streaming_tuned_config_knobs_bit_equal():
-    """StreamingRasterizer(config=...) forwards the tuned v6 kernel
-    knobs (span / cap_rows10 / tpp / dma_slots) — every one is
-    exactness-neutral, so the streamed result must be BIT-identical to
-    the default-config stream (r5: the stream_10m port to the tuned
-    kernel generation, VERDICT r4 #7)."""
-    from pointcloud_render_tpu.geometry import trails as trails_mod
-    from pointcloud_render_tpu.parallel.streaming import StreamingRasterizer
-    from pointcloud_render_tpu.raster.primitives import (
+@pytest.mark.parametrize("span", [4, 8])
+def test_streaming_config_reaches_the_backend(span):
+    """StreamingRasterizer(config=...) forwards its RasterConfig: a wider
+    binning span is exactness-neutral, so the streamed trail soup must
+    be identical to the default-config stream."""
+    from pointcloud_render.geometry import trails as trails_mod
+    from pointcloud_render.parallel.streaming import StreamingRasterizer
+    from pointcloud_render.raster.primitives import (
         ScreenPrimitives,
         capsules_from_polylines,
         discs_from_points,
     )
-    from pointcloud_render_tpu.raster.render import RasterConfig
 
     cam = make_camera()
     rng = np.random.default_rng(11)
@@ -461,17 +528,13 @@ def test_streaming_tuned_config_knobs_bit_equal():
 
     def run(config):
         sr = StreamingRasterizer(cam, chunk_points=n, radius_world=0.01,
-                                 backend="pallas6", soup_fn=trail_soup,
-                                 max_big=2048, config=config)
+                                 soup_fn=trail_soup, config=config)
         d, i, a = sr.rasterize([(pos, colors, vel)], return_attrs=True)
         return np.asarray(d), np.asarray(i), np.asarray(a)
 
-    d0, i0, a0 = run(None)
+    d0, i0, a0 = run(RasterConfig(max_big=2048))
     assert (i0 >= 0).any()
-    for cfg in (RasterConfig(backend="pallas6", span=4, cap_rows10=True),
-                RasterConfig(backend="pallas6", tiles_per_program=2,
-                             dma_slots=4, allow_exit=False)):
-        d1, i1, a1 = run(cfg)
-        np.testing.assert_array_equal(i1, i0)
-        np.testing.assert_array_equal(d1, d0)
-        np.testing.assert_array_equal(a1, a0)
+    d1, i1, a1 = run(RasterConfig(max_big=2048, span=span))
+    np.testing.assert_array_equal(i1, i0)
+    hit = i0 >= 0
+    np.testing.assert_allclose(d1[hit], d0[hit], rtol=2e-5)

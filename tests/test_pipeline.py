@@ -9,13 +9,13 @@ import os
 import numpy as np
 import pytest
 
-from pointcloud_render_tpu.configs import PRESETS
-from pointcloud_render_tpu.raster.render import RasterConfig
-from pointcloud_render_tpu.run.batch import Manifest, run_batch
-from pointcloud_render_tpu.run.metrics import MetricsSink
-from pointcloud_render_tpu.run.pipeline import FramePipeline
+from pointcloud_render.configs import PRESETS
+from pointcloud_render.raster.render import RasterConfig
+from pointcloud_render.run.batch import Manifest, run_batch
+from pointcloud_render.run.metrics import MetricsSink
+from pointcloud_render.run.pipeline import FramePipeline
 
-from pointcloud_render_tpu.io import ply as plyio
+from pointcloud_render.io import ply as plyio
 
 RNG = np.random.default_rng(11)
 N_POINTS = 60
@@ -42,7 +42,7 @@ def small_pipeline(preset, droplet_lod="capsule", max_per_tile=256):
     # certificate (correctly) refuses to return the truncated image.
     import dataclasses
 
-    from pointcloud_render_tpu.run import pipeline as pl
+    from pointcloud_render.run import pipeline as pl
 
     return pl.FramePipeline(
         preset, RasterConfig(backend="tiled", max_per_tile=max_per_tile),
@@ -52,7 +52,7 @@ def small_pipeline(preset, droplet_lod="capsule", max_per_tile=256):
 @pytest.fixture()
 def small_camera(monkeypatch):
     """Shrink the film so CPU tests are fast."""
-    import pointcloud_render_tpu.scene.camera as cam_mod
+    import pointcloud_render.scene.camera as cam_mod
 
     class SmallCamera(cam_mod.Camera):
         pass
@@ -171,12 +171,12 @@ def test_droplet_capsule_lod_emits_splats(small_camera):
     LOD must NOT additionally stack the capsule splats over the mesh."""
     import jax.numpy as jnp
 
-    from pointcloud_render_tpu.raster.primitives import (
+    from pointcloud_render.raster.primitives import (
         KIND_CAPSULE,
         KIND_DISC,
     )
-    from pointcloud_render_tpu.run.pipeline import build_primitives
-    from pointcloud_render_tpu.scene.camera import Camera
+    from pointcloud_render.run.pipeline import build_primitives
+    from pointcloud_render.scene.camera import Camera
 
     rng = np.random.default_rng(3)
     n = 30
@@ -197,7 +197,7 @@ def test_droplet_capsule_lod_emits_splats(small_camera):
     assert (kind[g + n:g + 2 * n] == KIND_CAPSULE).all()
     # ...and the splats are actually visible: some pixel's winner id
     # falls in the head-disc/tail-capsule range.
-    from pointcloud_render_tpu.raster.render import RasterConfig, render
+    from pointcloud_render.raster.render import RasterConfig, render
 
     fb = render(soup, cam, RasterConfig(backend="tiled",
                                         max_per_tile=256))
@@ -259,8 +259,8 @@ def test_pipeline_shadows_branch(small_camera):
     and a second run is bit-identical (determinism)."""
     import dataclasses
 
-    from pointcloud_render_tpu.run import pipeline as pl
-    from pointcloud_render_tpu.shading.shade import ShadingConfig
+    from pointcloud_render.run import pipeline as pl
+    from pointcloud_render.shading.shade import ShadingConfig
 
     preset = PRESETS["traj_ball"]
     rng = np.random.default_rng(21)
@@ -339,7 +339,7 @@ def test_preset_constants_match_reference():
 def test_example_stack_iteration(tmp_path, small_camera):
     """example_renderer iterates every frame of a 3-D npy stack, writing
     the same output name each time (example_renderer.py:165-199)."""
-    import pointcloud_render_tpu.run.pipeline as pl
+    import pointcloud_render.run.pipeline as pl
 
     preset = PRESETS["example"]
     rng = np.random.default_rng(9)
@@ -377,7 +377,7 @@ def test_droplet_without_velocity_uses_seeded_random_rotations(
 
 
 def test_profiler_trace_writes_files(tmp_path, small_camera):
-    from pointcloud_render_tpu.run.metrics import profiler_trace
+    from pointcloud_render.run.metrics import profiler_trace
 
     preset = PRESETS["traj_ball"]
     inp, out = str(tmp_path / "in"), str(tmp_path / "out")
@@ -399,9 +399,9 @@ def test_trail_segments_knob(small_camera):
     knob is the bench's --trail-segments A/B lever."""
     import jax.numpy as jnp
 
-    from pointcloud_render_tpu.geometry import trails as trails_mod
-    from pointcloud_render_tpu.run.pipeline import build_primitives
-    from pointcloud_render_tpu.scene.camera import TARGETS, Camera
+    from pointcloud_render.geometry import trails as trails_mod
+    from pointcloud_render.run.pipeline import build_primitives
+    from pointcloud_render.scene.camera import TARGETS, Camera
 
     preset = PRESETS["traj_ball"]
     cam = Camera(origin=np.array([2.0, 2.0, 2.2], np.float32),
@@ -440,7 +440,7 @@ def test_trail_segments_knob(small_camera):
 def test_parse_frames_open_range():
     """'100:' means from 100 to the preset's last frame; '' the preset
     default; 'a,b' a list (review r3: an empty high bound crashed)."""
-    from pointcloud_render_tpu.cli.main import parse_frames
+    from pointcloud_render.cli.main import parse_frames
 
     assert list(parse_frames("2:5", [0, 1])) == [2, 3, 4]
     assert list(parse_frames("198:", range(200))) == [198, 199]
@@ -480,6 +480,22 @@ def test_pipeline_self_heals_capacity_overflow(tmp_path, small_camera):
     assert pipe.raster_config.max_per_tile > 64  # capacity was raised
 
 
+def test_pipeline_self_heals_big_list_overflow(tmp_path, small_camera):
+    """The default csr backend: a frame whose wide primitives overflow a
+    tiny big list re-renders with a larger max_big and comes out whole."""
+    from pointcloud_render.run import pipeline as pl
+
+    preset = PRESETS["traj_ball"]
+    inp, out = str(tmp_path / "in"), str(tmp_path / "out")
+    synth_trajectory(inp, preset.file_pattern, [199], n=300)
+    pipe = pl.FramePipeline(preset, RasterConfig(max_big=1))
+    sink = run_batch(preset, input_folder=inp, output_folder=out,
+                     frames=[199], pipeline=pipe,
+                     sink=MetricsSink(quiet=True))
+    assert sink.summary()["frames_ok"] == 1
+    assert pipe.raster_config.max_big > 1  # capacity was raised
+
+
 def test_trail_segments_adaptive(small_camera):
     """trail_segments="adaptive": static TRAIL_ADAPTIVE_BUDGET rows per
     trail (same soup shapes/layout as fixed segments=4), each trail
@@ -488,13 +504,13 @@ def test_trail_segments_adaptive(small_camera):
     every binned key and bin zero slots)."""
     import jax.numpy as jnp
 
-    from pointcloud_render_tpu.geometry import trails as trails_mod
-    from pointcloud_render_tpu.run.pipeline import (
+    from pointcloud_render.geometry import trails as trails_mod
+    from pointcloud_render.run.pipeline import (
         TRAIL_ADAPTIVE_BUDGET,
         _adaptive_trail_segment_counts,
         build_primitives,
     )
-    from pointcloud_render_tpu.scene.camera import TARGETS, Camera
+    from pointcloud_render.scene.camera import TARGETS, Camera
 
     preset = PRESETS["traj_ball"]
     cam = Camera(origin=np.array([2.0, 2.0, 2.2], np.float32),
@@ -537,19 +553,18 @@ def test_trail_segments_adaptive(small_camera):
         m = vk[idx]
         np.testing.assert_array_equal(pa[idx][:, :kk][m], pk[idx][m])
 
-    # The adaptive soup renders winner-exact on the v6 kernel.
+    # The adaptive soup renders winner-exact on the csr backend.
     import jax
 
-    from pointcloud_render_tpu.raster import cpu_reference, pallas_csr6
+    from pointcloud_render.raster import cpu_reference, csr
 
     host = jax.tree_util.tree_map(np.asarray, sa)
     W, H = cam.width, cam.height
     d_o, i_o = cpu_reference.rasterize_reference(host, W, H)
     assert (i_o >= 0).any()
-    d_p, i_p = pallas_csr6.rasterize_pallas_csr6(sa, W, H, span=4,
-                                                 max_big=256,
-                                                 cap_rows10=True,
-                                                 interpret=True)
+    d_p, i_p, ovf = csr.rasterize_csr(sa, W, H, walk="xla", span=4,
+                                      max_big=256)
+    assert int(ovf) == 0
     np.testing.assert_array_equal(np.asarray(i_p), i_o)
 
 
@@ -562,8 +577,8 @@ def test_packed_capsule_build_bit_equal(small_camera):
     tapered tail + fading trails)."""
     import jax.numpy as jnp
 
-    from pointcloud_render_tpu.run.pipeline import build_primitives
-    from pointcloud_render_tpu.scene.camera import TARGETS, Camera
+    from pointcloud_render.run.pipeline import build_primitives
+    from pointcloud_render.scene.camera import TARGETS, Camera
 
     rng = np.random.default_rng(9)
     n = 120
@@ -606,3 +621,45 @@ def test_packed_capsule_build_bit_equal(small_camera):
             vm = np.asarray(sp.valid & so.valid)[:, None]
             assert np.where(vm, bu, 0.0).max() < 0.01, (preset_name,
                                                         segs, fi)
+
+
+@pytest.mark.parametrize("preset_name", ["traj_ball", "traj_vel", "traj_b0",
+                                         "traj_b1", "traj_original", "traj",
+                                         "example"])
+def test_default_backend_matches_tiled_on_every_preset(small_camera,
+                                                       preset_name):
+    """Every reference preset renders through the default (csr) backend
+    with the same winners as the capacity-raised tiled backend."""
+    preset = PRESETS[preset_name]
+    rng = np.random.default_rng(21)
+    n = 120
+    pos = rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32)
+    vel = (rng.normal(size=(n, 3)) * 2).astype(np.float32)
+    pcl = pos if preset.positions_only else np.concatenate([pos, vel], 1)
+    hist = (np.stack([pos - 0.01 * k * vel for k in range(4, 0, -1)])
+            if preset.trail == "history" else None)
+    out = {}
+    for backend in ("auto", "tiled"):
+        pipe = FramePipeline(preset, RasterConfig(backend=backend,
+                                                  max_per_tile=4096))
+        out[backend] = pipe.render_array(pcl, 120, hist)
+    a, b = np.asarray(out["auto"].index), np.asarray(out["tiled"].index)
+    assert (b >= 0).mean() > 0.01
+    np.testing.assert_array_equal(a, b)
+
+
+def test_supersampled_csr_matches_tiled(small_camera):
+    """Supersampling scales the csr binning span with the film; winners
+    stay those of the tiled backend."""
+    preset = PRESETS["traj_ball"]
+    rng = np.random.default_rng(22)
+    pcl = np.concatenate([rng.uniform(-0.5, 0.5, (100, 3)),
+                          rng.normal(size=(100, 3)) * 2], 1).astype(
+                              np.float32)
+    out = {}
+    for backend in ("auto", "tiled"):
+        pipe = FramePipeline(preset, RasterConfig(
+            backend=backend, max_per_tile=4096, supersample=2))
+        out[backend] = pipe.render_array(pcl, 200)
+    np.testing.assert_array_equal(np.asarray(out["auto"].index),
+                                  np.asarray(out["tiled"].index))

@@ -6,21 +6,23 @@ backends are expected to be bit-exact for discs and capsules, and exact
 up to winner identity for triangles (1-ulp division caveat, coverage.py).
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pointcloud_render_tpu.raster import bruteforce, cpu_reference, xla_tiled
-from pointcloud_render_tpu.raster.primitives import (
+from pointcloud_render.raster import bruteforce, cpu_reference, xla_tiled
+from pointcloud_render.raster.primitives import (
     ScreenPrimitives,
     capsules_from_polylines,
     discs_from_points,
     triangles_from_mesh,
 )
-from pointcloud_render_tpu.raster.render import RasterConfig, ground_plane, render
-from pointcloud_render_tpu.raster.tiles import bin_primitives
-from pointcloud_render_tpu.scene.camera import Camera
+from pointcloud_render.raster.render import RasterConfig, ground_plane, render
+from pointcloud_render.raster.tiles import bin_primitives
+from pointcloud_render.scene.camera import Camera
 
 RNG = np.random.default_rng(42)
 W, H = 256, 160
@@ -236,83 +238,14 @@ class TestShadedRender:
         assert rgb.shape == (H, W, 3)
         assert rgb.min() >= 0 and rgb.max() <= 1
         assert rgb.std() > 0.01  # not a flat image
-        from pointcloud_render_tpu.io import write_png
+        from pointcloud_render.io import write_png
         write_png(str(tmp_path / "smoke.png"), rgb)
-
-
-class TestPallasCsr:
-    """The Pallas CSR kernel in interpret mode (the TPU-compiled kernel is
-    additionally validated against the tiled backend on hardware)."""
-
-    def test_mixed_scene_matches_oracle(self):
-        from pointcloud_render_tpu.raster.pallas_csr import rasterize_pallas_csr
-
-        cam = make_camera()
-        rng = np.random.default_rng(8)
-        discs = random_cloud_prims(cam, n=200, radius=0.025, seed=7)
-        pts = rng.uniform(-0.4, 0.4, size=(30, 5, 3)).astype(np.float32)
-        caps = capsules_from_polylines(
-            jnp.asarray(pts), np.ones((30, 5), bool), cam, 0.003,
-            np.array([0.2, 1.0, 0.4], np.float32))
-        soup = ScreenPrimitives.concatenate(
-            [ground_plane(cam, 10.0, (0, 0, -0.5)), discs, caps])
-        d_o, i_o = cpu_reference.rasterize_reference(to_host(soup), W, H)
-        d_p, i_p = rasterize_pallas_csr(soup, W, H, interpret=True)
-        assert_buffers_match(d_o, i_o, d_p, i_p, "pallas csr mixed",
-                             exact_depth=False, depth_rtol=2e-5)
-
-    def test_disc_only_fast_path(self):
-        from pointcloud_render_tpu.raster.pallas_csr import rasterize_pallas_csr
-
-        cam = make_camera()
-        discs = random_cloud_prims(cam, n=300, radius=0.02, seed=3)
-        soup = ScreenPrimitives.concatenate(
-            [ground_plane(cam, 10.0, (0, 0, -0.5)), discs])
-        d_o, i_o = cpu_reference.rasterize_reference(to_host(soup), W, H)
-        d_p, i_p = rasterize_pallas_csr(soup, W, H, no_triangles=True,
-                                        interpret=True)
-        assert_buffers_match(d_o, i_o, d_p, i_p, "pallas csr discs",
-                             exact_depth=False, depth_rtol=2e-5)
-
-    def test_dense_tile_no_capacity_limit(self):
-        from pointcloud_render_tpu.raster.pallas_csr import rasterize_pallas_csr
-
-        # Everything lands in very few tiles; CSR must rasterize all of it.
-        cam = make_camera()
-        rng = np.random.default_rng(9)
-        pos = (rng.uniform(-0.01, 0.01, (2000, 3))).astype(np.float32)
-        prims = discs_from_points(pos, cam, jnp.full((2000,), 0.002),
-                                  np.array([0.3, 0.3, 0.3], np.float32))
-        d_o, i_o = cpu_reference.rasterize_reference(to_host(prims), W, H)
-        d_p, i_p = rasterize_pallas_csr(prims, W, H, interpret=True)
-        assert_buffers_match(d_o, i_o, d_p, i_p, "pallas csr dense",
-                             exact_depth=True)
-
-
-class TestBinDiagnostics:
-    def test_no_overflow_normal_scene(self):
-        from pointcloud_render_tpu.raster.pallas_csr import bin_diagnostics
-
-        cam = make_camera()
-        prims = random_cloud_prims(cam, n=500, radius=0.02)
-        assert int(bin_diagnostics(prims, W, H)) == 0
-
-    def test_overflow_reported_for_many_huge_prims(self):
-        from pointcloud_render_tpu.raster.pallas_csr import bin_diagnostics
-
-        # Hundreds of screen-spanning discs overflow a tiny big list.
-        cam = make_camera()
-        n = 40
-        pos = np.tile(np.array([[0.0, 0.0, -0.05]], np.float32), (n, 1))
-        prims = discs_from_points(pos, cam, jnp.full((n,), 3.0),
-                                  np.array([0.3, 0.3, 0.3], np.float32))
-        assert int(bin_diagnostics(prims, W, H, max_big=8)) == n - 8
 
 
 class TestShadingUnits:
     def test_sphere_normal_center_faces_camera(self):
-        from pointcloud_render_tpu.raster.render import RasterConfig, render
-        from pointcloud_render_tpu.shading.shade import ShadingConfig
+        from pointcloud_render.raster.render import RasterConfig, render
+        from pointcloud_render.shading.shade import ShadingConfig
 
         cam = make_camera()
         pos = np.array([[0.0, 0.0, -0.05]], np.float32)
@@ -329,8 +262,8 @@ class TestShadingUnits:
         assert rgb[cy, cx].mean() > rgb[rim_y, cx].mean()
 
     def test_flat_mode_passthrough(self):
-        from pointcloud_render_tpu.raster.render import RasterConfig, render
-        from pointcloud_render_tpu.shading.shade import ShadingConfig
+        from pointcloud_render.raster.render import RasterConfig, render
+        from pointcloud_render.shading.shade import ShadingConfig
 
         cam = make_camera()
         pos = np.array([[0.0, 0.0, -0.05]], np.float32)
@@ -348,7 +281,7 @@ class TestShadingUnits:
 
 class TestCameraMatrix:
     def test_axes_orthonormal(self):
-        from pointcloud_render_tpu.scene.camera import look_at_axes
+        from pointcloud_render.scene.camera import look_at_axes
 
         r, u, f = look_at_axes((2.0, 2.0, 2.0), (0.0, 0.0, -0.05))
         for a in (r, u, f):
@@ -359,7 +292,7 @@ class TestCameraMatrix:
                                    -np.asarray(f), atol=1e-6)
 
     def test_target_projects_to_center(self):
-        from pointcloud_render_tpu.raster.project import project_points
+        from pointcloud_render.raster.project import project_points
 
         cam = make_camera()
         proj = project_points(np.array([[0.0, 0.0, -0.05]], np.float32), cam)
@@ -367,7 +300,7 @@ class TestCameraMatrix:
         assert float(proj["py"][0]) == pytest.approx(H / 2, abs=1e-3)
 
     def test_up_in_world_is_up_in_image(self):
-        from pointcloud_render_tpu.raster.project import project_points
+        from pointcloud_render.raster.project import project_points
 
         cam = make_camera()
         proj = project_points(
@@ -397,32 +330,79 @@ class TestTaperedCapsules:
         assert max(rows_left, rows_right) >= min(rows_left, rows_right) + 3
 
 
+RENDER_MODULE = "pointcloud_render.raster.render"
+
+
 class TestBackendDispatch:
-    """The dispatch surface contract (VERDICT r3 items 6 and 9)."""
+    """One platform dispatch (raster/render.py): the csr walk follows the
+    platform; every other platform is an error, never a fallback."""
 
-    def test_auto_resolves_to_v6_on_tpu_tiled_elsewhere(self, monkeypatch):
-        import importlib
+    @pytest.mark.parametrize("platform,walk", [("gpu", "triton"),
+                                               ("cpu", "xla")])
+    def test_platform_walk(self, monkeypatch, platform, walk):
+        render_mod = importlib.import_module(RENDER_MODULE)
 
-        render_mod = importlib.import_module(
-            "pointcloud_render_tpu.raster.render")
+        monkeypatch.setattr(jax, "default_backend", lambda: platform)
+        assert render_mod.platform_walk() == walk
 
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        assert render_mod._resolve_backend("auto") == "pallas6"
-        monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-        assert render_mod._resolve_backend("auto") == "tiled"
-        # Named backends pass through untouched.
-        assert render_mod._resolve_backend("pallas") == "pallas"
+    @pytest.mark.parametrize("platform", ["rocm", "METAL"])
+    def test_other_platforms_are_an_error(self, monkeypatch, platform):
+        render_mod = importlib.import_module(RENDER_MODULE)
 
-    def test_retired_backends_not_dispatchable(self):
-        from pointcloud_render_tpu.raster.render import (
-            RasterConfig,
-            rasterize,
-        )
+        monkeypatch.setattr(jax, "default_backend", lambda: platform)
+        with pytest.raises(RuntimeError, match="no CSR raster walk"):
+            render_mod.platform_walk()
+        soup = random_cloud_prims(make_camera(), n=16)
+        with pytest.raises(RuntimeError, match="no CSR raster walk"):
+            render_mod.rasterize(soup, W, H, RasterConfig())
+
+    def test_rasterize_runs_the_platform_walk(self, monkeypatch):
+        """rasterize() hands the walk that platform_walk names to the csr
+        module — and nothing else decides it."""
+        from pointcloud_render.raster import csr
+
+        render_mod = importlib.import_module(RENDER_MODULE)
+
+        seen = []
+        real = csr.rasterize_csr
+
+        def spy(*a, **kw):
+            seen.append(kw["walk"])
+            return real(*a, **kw)
+
+        monkeypatch.setattr(csr, "rasterize_csr", spy)
+        soup = random_cloud_prims(make_camera(), n=32)
+        render_mod.rasterize(soup, W, H, RasterConfig(backend="auto"))
+        render_mod.rasterize(soup, W, H, RasterConfig(backend="csr"))
+        assert seen == ["xla", "xla"]
+
+    def test_auto_is_csr(self):
+        from pointcloud_render.raster.render import resolve_backend
+
+        assert resolve_backend("auto") == "csr"
+        for name in ("csr", "tiled", "bruteforce", "cpu"):
+            assert resolve_backend(name) == name
+
+    @pytest.mark.parametrize("name", ["pallas", "pallas3", "pallas4",
+                                      "pallas5", "pallas6"])
+    def test_retired_backends_not_dispatchable(self, name):
+        from pointcloud_render.raster.render import rasterize
 
         soup = random_cloud_prims(make_camera(), n=16)
-        for name in ("pallas5", "pallas_v1"):
-            with pytest.raises(ValueError, match="unknown backend"):
-                rasterize(soup, W, H, RasterConfig(backend=name))
+        with pytest.raises(ValueError, match="unknown backend"):
+            rasterize(soup, W, H, RasterConfig(backend=name))
+
+    @pytest.mark.parametrize("backend", ["auto", "tiled", "bruteforce",
+                                         "cpu"])
+    def test_every_backend_matches_oracle(self, backend):
+        cam = make_camera()
+        soup = random_cloud_prims(cam, n=200, radius=0.03, seed=4)
+        d_o, i_o = cpu_reference.rasterize_reference(to_host(soup), W, H)
+        rasterize = importlib.import_module(RENDER_MODULE).rasterize
+        d, i, diag = rasterize(soup, W, H, RasterConfig(backend=backend),
+                               return_diag=True)
+        assert int(diag["overflow"]) == 0
+        assert_buffers_match(d_o, i_o, d, i, backend)
 
 
 class TestGroundPlaneSharedNormal:
@@ -432,7 +412,7 @@ class TestGroundPlaneSharedNormal:
         differ in the last ulp at some camera angles, which used to veto
         the per-kind-constant shade certificate (derive_three_tone) at
         frame 20 of the bench trajectory."""
-        from pointcloud_render_tpu.scene.camera import (
+        from pointcloud_render.scene.camera import (
             TOTAL_FRAMES,
             camera_origin_jax,
         )
